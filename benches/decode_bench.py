@@ -1,4 +1,4 @@
-"""Client-decode microbench (host-side, no TPU needed).
+"""Client-decode microbench (host-side, no accelerator needed).
 
 Times the retriever path stage by stage at the reference's flagship scale
 (D = 65536, k = 50): index-ct decrypt + bucket scan, payload-ct decrypt,
@@ -19,10 +19,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax.numpy as jnp
 
-from tfhe_omr_tpu.core.context import OmrContext
-from tfhe_omr_tpu.core.matrix import solve_matrix, solve_matrix_numpy
-from tfhe_omr_tpu.core.params import OmrParameters, RetrievalParams
-from tfhe_omr_tpu.core.retriever import Retriever
+from tfhe_omr.core.context import OmrContext
+from tfhe_omr.core.matrix import solve_matrix, solve_matrix_numpy
+from tfhe_omr.core.params import OmrParameters, RetrievalParams
+from tfhe_omr.core.retriever import Retriever
 
 
 def timeit(fn, reps=10):

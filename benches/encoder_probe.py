@@ -1,9 +1,8 @@
-"""Decompose the digest-encoder wall time (round-4 reconciliation).
+"""Decompose the digest-encoder wall time into its phases.
 
-BENCH_r03 reported encode-payloads 13.38 s while the e2e artifact measured
-4.60 s for the same D=65536 shape. This probe times each phase of the
-encoder calls separately on the chip, repeated, so the discrepancy gets a
-cause instead of two competing headlines.
+This probe times each phase of the encoder calls separately on the device,
+repeated, so a difference between the benchmark's encoder time and the
+end-to-end run's gets a cause instead of two competing headlines.
 
 Usage: python benches/encoder_probe.py [--d 65536] [--reps 3]
 """
@@ -28,8 +27,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from tfhe_omr_tpu.core.keygen import SecretKeyPack
-    from tfhe_omr_tpu.core.params import OmrParameters
+    from tfhe_omr.core.keygen import SecretKeyPack
+    from tfhe_omr.core.params import OmrParameters
 
     params = OmrParameters.default()
     skp = SecretKeyPack(params, rng=0)
@@ -47,7 +46,6 @@ def main():
         0, 256, size=(args.d, rp.payload_length)
     )  # int64, as bench.py makes them
 
-    print(json.dumps({"warm": detector.warm_encoders(rp, args.d)}), flush=True)
 
     def stamp(label, fn, reps=args.reps):
         out = fn()  # warm (load + compile leftovers)
@@ -78,7 +76,7 @@ def main():
     stamp("idx_5ct_stream", idx5, reps=2)
 
     # ---- payload encoder phases
-    from tfhe_omr_tpu.core.detector import sample_weights
+    from tfhe_omr.core.detector import sample_weights
 
     def pay_host_prep():
         w = sample_weights(rp, 9)
@@ -105,7 +103,7 @@ def main():
 
     def pay_scan():
         return detector._encode_pay_scan_jit(
-            pert, p16_d, w_d, accs, rp.payload_length, 2048, detector.tables
+            pert, p16_d, w_d, accs, rp.payload_length, 2048
         )
 
     stamp("pay_scan_device_args", pay_scan)

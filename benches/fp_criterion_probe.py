@@ -15,7 +15,7 @@ exactly deterministic (the LUT window map v -> LUT1[v] is key- and
 noise-independent; ``detector.rs:457-503``). Zero mismatches means the
 rate probe measures exactly the detector's acceptance event.
 
-Writes artifacts/fp_criterion_r05.json.
+Writes artifacts/fp_criterion.json (git-ignored).
 
 Usage: python benches/fp_criterion_probe.py
 """
@@ -35,9 +35,9 @@ from benches.fp_rate_probe import extraction_weights
 def main():
     import jax
 
-    from tfhe_omr_tpu.core.keygen import SecretKeyPack
-    from tfhe_omr_tpu.core.params import OmrParameters
-    from tfhe_omr_tpu.core.sender import ClueBatch
+    from tfhe_omr.core.keygen import SecretKeyPack
+    from tfhe_omr.core.params import OmrParameters
+    from tfhe_omr.core.sender import ClueBatch
 
     params = OmrParameters.default(noise_free=True)
     cp = params.clue_params
@@ -104,8 +104,9 @@ def main():
     print(json.dumps(result), flush=True)
     out_p = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "artifacts", "fp_criterion_r05.json",
+        "artifacts", "fp_criterion.json",
     )
+    os.makedirs(os.path.dirname(out_p), exist_ok=True)
     with open(out_p, "w") as fh:
         json.dump(result, fh, indent=1)
     print(f"wrote {out_p}", flush=True)

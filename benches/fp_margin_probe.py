@@ -16,9 +16,10 @@ This probe decrypts the stage-1 output (the mod-switched LWE under
 * chunk placement: pertinent messages must ALL land in chunk 14
   (2 * clue_count); non-pertinent sums distribute around 7.
 
-Run on the TPU: python benches/fp_margin_probe.py
-(round-4 record: pertinent 1024/1024 in chunk 14, sigma 11.8,
-max |residual| 49 of 64; non-pertinent sigma 11.1.)
+Run: python benches/fp_margin_probe.py
+(an earlier record: pertinent 1024/1024 in chunk 14, sigma 11.8,
+max |residual| 49 of 64; non-pertinent sigma 11.1. The noise is a property
+of the keys and parameters, not of the device.)
 """
 
 import os
@@ -32,14 +33,13 @@ import numpy as np
 def main(batch: int = 1024):
     import jax.numpy as jnp
 
-    from tfhe_omr_tpu.core.keygen import SecretKeyPack
-    from tfhe_omr_tpu.core.params import OmrParameters
+    from tfhe_omr.core.keygen import SecretKeyPack
+    from tfhe_omr.core.params import OmrParameters
 
     params = OmrParameters.default()
     skp = SecretKeyPack(params, rng=0)
     skp2 = SecretKeyPack(params, rng=1)
     det = skp.generate_detector()
-    det.warm(batch)
     rng = np.random.default_rng(2)
     own = skp.generate_sender().gen_clues(batch, rng)
     other = skp2.generate_sender().gen_clues(batch, rng)
@@ -54,7 +54,7 @@ def main(batch: int = 1024):
     for name, cl in (("pertinent", own), ("non-pertinent", other)):
         ms_a, ms_b = det._stage1_jit(
             jnp.asarray(cl.a), jnp.asarray(cl.b7),
-            key.bsk1, key.bsk1_sh, key.ksk_limbs, key.bsk1_bal, tbl,
+            key.bsk1, key.bsk1_sh, key.ksk_limbs, tbl,
         )
         m = np.mod(np.asarray(ms_b) - np.asarray(ms_a) @ s, q_inter)
         k = np.round(m / delta).astype(np.int64) % (q_inter // delta)

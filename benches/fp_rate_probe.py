@@ -4,11 +4,11 @@ The detector flags a message iff ALL clue_count of its clues decrypt to 0
 under the recipient key (LUT1 accept value, reference
 ``detector.rs:457-503``); the INDEPENDENCE model puts the rate at
 t^-clue_count = 8^-7 ~= 4.768e-7 per message. This probe runs the REAL
-clue generator (``tfhe_omr_tpu.core.sender.clue_chunk_body`` — the exact
+clue generator (``tfhe_omr.core.sender.clue_chunk_body`` — the exact
 program the pipeline's device clue path executes) under a wrong key,
 extracts + decrypts all clue_count LWE samples per message ON DEVICE
 (extraction folded into one signed matrix W so decrypt is one int8-plane
-MXU dot), applies the LUT1 accept criterion, and counts:
+dot), applies the LUT1 accept criterion, and counts:
 
 * per-clue accept fraction      (expect 1/t = 0.125 each)
 * all-clues accept count        (the FP events)
@@ -16,7 +16,7 @@ MXU dot), applies the LUT1 accept criterion, and counts:
   different messages — the independence control: clue columns rolled by
   131*i rows)
 
-Round-5 result (artifacts/fp_rate_r05_combined.json): 85 FP events
+An earlier result: 85 FP events
 across 2.01e8 messages / 5 key-pair streams vs 96 expected — the joint
 rate is statistically CONSISTENT with the 8^-7 independence model
 (p~0.14), per-clue marginals exactly 1/8, shuffled control matching. An
@@ -29,7 +29,7 @@ real correlation would show against the in/cross-message contrast.
 A small own-key sanity lane asserts the criterion wiring: clues under the
 recipient's own key must accept with rate ~1.
 
-Writes artifacts/fp_rate_r05.json. ~6-10 min for 1e8 messages on one v5e.
+Writes artifacts/fp_rate.json (git-ignored).
 
 Usage: python benches/fp_rate_probe.py [--messages 100000000] [--pairs 4]
 """
@@ -73,7 +73,7 @@ def build_step(n: int, c: int, noise_std: float, q0: int, t: int,
     import jax
     import jax.numpy as jnp
 
-    from tfhe_omr_tpu.core.sender import clue_chunk_body
+    from tfhe_omr.core.sender import clue_chunk_body
 
     @jax.jit
     def step(key, lo, hi, w):
@@ -126,7 +126,7 @@ def key_args(clue_key, w):
     return (
         jax.device_put((mat & 127).astype(np.int8)),
         jax.device_put((mat >> 7).astype(np.int8)),
-        # signed extraction weights ride the MXU as one int8 plane
+        # signed extraction weights as one int8 plane
         jax.device_put(w.astype(np.int8)),
     )
 
@@ -160,8 +160,8 @@ def main():
 
     import jax
 
-    from tfhe_omr_tpu.core.keygen import SecretKeyPack
-    from tfhe_omr_tpu.core.params import OmrParameters
+    from tfhe_omr.core.keygen import SecretKeyPack
+    from tfhe_omr.core.params import OmrParameters
 
     params = OmrParameters.default()
     cp = params.clue_params
@@ -250,7 +250,7 @@ def main():
         "per_clue_design_rate": 1.0 / t,
         "own_key_accept_rate": own_rate,
         "pairs": pair_results,
-        "generator": "tfhe_omr_tpu.core.sender.clue_chunk_body "
+        "generator": "tfhe_omr.core.sender.clue_chunk_body "
                      "(the pipeline's device clue program)",
         "wall_s": round(wall, 1),
         "device": str(jax.devices()[0]),
@@ -258,7 +258,7 @@ def main():
     print(json.dumps(result), flush=True)
     out = args.out or os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "artifacts", "fp_rate_r05.json",
+        "artifacts", "fp_rate.json",
     )
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out, "w") as fh:

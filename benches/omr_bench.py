@@ -31,8 +31,8 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from tfhe_omr_tpu.core.keygen import SecretKeyPack
-    from tfhe_omr_tpu.core.params import OmrParameters
+    from tfhe_omr.core.keygen import SecretKeyPack
+    from tfhe_omr.core.params import OmrParameters
 
     params = OmrParameters.tiny() if args.tiny else OmrParameters.default()
     skp = SecretKeyPack(params, rng=0)

@@ -51,9 +51,9 @@ def main():
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from tfhe_omr_tpu.core.keygen import SecretKeyPack
-    from tfhe_omr_tpu.core.params import OmrParameters
-    from tfhe_omr_tpu.ops.bootstrap import (
+    from tfhe_omr.core.keygen import SecretKeyPack
+    from tfhe_omr.core.params import OmrParameters
+    from tfhe_omr.ops.bootstrap import (
         init_accumulator,
         make_blind_rotate,
         make_lwe_keyswitch,

@@ -30,7 +30,7 @@ def main():
     coordinator, num_procs, pid, out_path = (
         sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     )
-    from tfhe_omr_tpu.parallel import distributed
+    from tfhe_omr.parallel import distributed
 
     n_global = distributed.init(
         coordinator_address=coordinator,
@@ -40,10 +40,10 @@ def main():
     assert distributed.is_multihost()
     assert n_global == 2 * num_procs, n_global
 
-    from tfhe_omr_tpu.core.keygen import SecretKeyPack
-    from tfhe_omr_tpu.core.params import OmrParameters
-    from tfhe_omr_tpu.core.payload import random_payloads
-    from tfhe_omr_tpu.parallel import ShardedDetector, make_data_mesh
+    from tfhe_omr.core.keygen import SecretKeyPack
+    from tfhe_omr.core.params import OmrParameters
+    from tfhe_omr.core.payload import random_payloads
+    from tfhe_omr.parallel import ShardedDetector, make_data_mesh
 
     params = OmrParameters.tiny()
     skp = SecretKeyPack(params, rng=21)  # same seed on every process

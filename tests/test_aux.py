@@ -5,7 +5,7 @@ import os
 
 import numpy as np
 
-from tfhe_omr_tpu.utils.timing import StageTimer, TimingRecord, write_csv
+from tfhe_omr.utils.timing import StageTimer, TimingRecord, write_csv
 
 
 def test_stage_timer():
@@ -42,7 +42,7 @@ def test_key_size_accounting(tiny_skp):
 
 def test_payload_ring_ops(rng):
     """Payload add/sub/mul_scalar mod p (reference payload.rs:53-103)."""
-    from tfhe_omr_tpu.core.payload import (
+    from tfhe_omr.core.payload import (
         payload_add,
         payload_mul_scalar,
         payload_sub,

@@ -6,10 +6,10 @@ import pytest
 
 from tests.helpers import centered, lwe_encrypt, rlwe_decrypt_coeff, rlwe_encrypt_coeff
 
-from tfhe_omr_tpu.core.keygen import SecretKeyPack
-from tfhe_omr_tpu.core.lut import first_level_lut
-from tfhe_omr_tpu.core.params import OmrParameters
-from tfhe_omr_tpu.ops.bootstrap import (
+from tfhe_omr.core.keygen import SecretKeyPack
+from tfhe_omr.core.lut import first_level_lut
+from tfhe_omr.core.params import OmrParameters
+from tfhe_omr.ops.bootstrap import (
     extract_constant_lwe,
     init_accumulator,
     lwe_modulus_switch,

@@ -17,10 +17,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tfhe_omr_tpu.core.errors import IndexDecodeError
-from tfhe_omr_tpu.core.keygen import SecretKeyPack
-from tfhe_omr_tpu.core.params import OmrParameters, RetrievalParams
-from tfhe_omr_tpu.core.payload import random_payloads
+from tfhe_omr.core.errors import IndexDecodeError
+from tfhe_omr.core.keygen import SecretKeyPack
+from tfhe_omr.core.params import OmrParameters, RetrievalParams
+from tfhe_omr.core.payload import random_payloads
 
 # Seed chosen so the FIRST index ciphertext recovers only 23/24 indices
 # (one bucket collision in every segment for that message) and the second

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tfhe_omr_tpu.ops.decompose import SignedGadget
-from tfhe_omr_tpu.ops.modmath import PrimeField
+from tfhe_omr.ops.decompose import SignedGadget
+from tfhe_omr.ops.modmath import PrimeField
 
 Q1 = 134215681
 Q2 = 1125899906826241

@@ -37,7 +37,7 @@ def test_two_process_sharded_digest(tmp_path):
     # both workers must compile at the same pace: a shared persistent
     # compile cache can make one process fast and the other slow, tripping
     # gloo's 30 s collective-init timeout
-    env["TFHE_OMR_NO_COMPILE_CACHE"] = "1"
+    env["JAX_ENABLE_COMPILATION_CACHE"] = "false"
     procs = [
         subprocess.Popen(
             [sys.executable, worker, coordinator, "2", str(pid), str(out)],
@@ -58,9 +58,9 @@ def test_two_process_sharded_digest(tmp_path):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from tfhe_omr_tpu.core.keygen import SecretKeyPack
-    from tfhe_omr_tpu.core.params import OmrParameters
-    from tfhe_omr_tpu.core.payload import random_payloads
+    from tfhe_omr.core.keygen import SecretKeyPack
+    from tfhe_omr.core.params import OmrParameters
+    from tfhe_omr.core.payload import random_payloads
 
     params = OmrParameters.tiny()
     skp = SecretKeyPack(params, rng=21)
@@ -104,7 +104,7 @@ def test_two_process_full_e2e(tmp_path):
         if not k.startswith(("XLA_FLAGS", "JAX_PLATFORMS"))
     }
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
-    env["TFHE_OMR_NO_COMPILE_CACHE"] = "1"
+    env["JAX_ENABLE_COMPILATION_CACHE"] = "false"
     outs = [tmp_path / f"omr{i}.json" for i in range(2)]
     procs = [
         subprocess.Popen(
@@ -130,4 +130,4 @@ def test_two_process_full_e2e(tmp_path):
         art = json.load(fh)
     assert art["byte_exact"] is True
     assert art["true_subset_of_decoded"] is True
-    assert art["device_count"] == 4
+    assert art["device"]["count"] == 4

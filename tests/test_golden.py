@@ -11,8 +11,7 @@ fails CI instead of only (maybe) shifting the omd noise margin:
   * modular mul in both fields (q1 = 2^27-2047, q2 = 2^50-16383)
   * signed gadget digits (L1 B=2^5 d=4, L2 B=2^7 d=6, trace B=2^2 exact)
   * negacyclic NTT/INTT outputs, both rings (N1=1024, N2=2048)
-  * one paired (BMMP) CMUX step, both levels (XLA path; the fused Pallas
-    kernels are bit-equality-tested against this path in test_fused_cmux)
+  * one paired (BMMP) CMUX step, both levels
   * the LWE key switch and the homomorphic trace
   * a full detect ciphertext + index/payload digests at the tiny preset
     (seeded, noise-free) — the whole-protocol pin
@@ -37,14 +36,20 @@ SEED = 20250817
 
 
 def compute_vectors():
-    """Recompute every pinned output from fixed seeds (CPU backend)."""
+    """Recompute every pinned output from fixed seeds on the default device
+    (the CPU here; chip_smoke.py runs it on the GPU). Each layer runs as one
+    jitted program (integer arithmetic: jit changes no bit, and spares a
+    GPU one compile per eager op)."""
+    from functools import partial
+
+    import jax
     import jax.numpy as jnp
 
-    from tfhe_omr_tpu.core.context import OmrContext
-    from tfhe_omr_tpu.core.keygen import SecretKeyPack
-    from tfhe_omr_tpu.core.params import OmrParameters
-    from tfhe_omr_tpu.core.sender import ClueBatch
-    from tfhe_omr_tpu.ops.bootstrap import (
+    from tfhe_omr.core.context import OmrContext
+    from tfhe_omr.core.keygen import SecretKeyPack
+    from tfhe_omr.core.params import OmrParameters
+    from tfhe_omr.core.sender import ClueBatch
+    from tfhe_omr.ops.bootstrap import (
         make_blind_rotate,
         make_lwe_keyswitch,
         make_trace,
@@ -61,7 +66,9 @@ def compute_vectors():
     for name, f in (("q1", f1), ("q2", f2)):
         a = rng.integers(0, f.q, size=256, dtype=np.int64)
         b = rng.integers(0, f.q, size=256, dtype=np.int64)
-        out[f"mul_{name}"] = np.asarray(f.mul(jnp.asarray(a), jnp.asarray(b)))
+        out[f"mul_{name}"] = np.asarray(
+            jax.jit(f.mul)(jnp.asarray(a), jnp.asarray(b))
+        )
 
     # ---- 2. signed gadget digits (the convention the BSKs are built with)
     for name, g in (
@@ -70,21 +77,23 @@ def compute_vectors():
         ("gtr", ctx.gadget_trace),
     ):
         x = rng.integers(0, g.field.q, size=256, dtype=np.int64)
-        out[f"dig_{name}"] = np.asarray(g.decompose(jnp.asarray(x), axis=0))
+        out[f"dig_{name}"] = np.asarray(
+            jax.jit(partial(g.decompose, axis=0))(jnp.asarray(x))
+        )
 
     # ---- 3. negacyclic NTT / INTT, both rings
     for name, ntt, f in (("ntt1", ntt1, f1), ("ntt2", ntt2, f2)):
         x = rng.integers(0, f.q, size=(ntt.n, 2), dtype=np.int64)
         xj = jnp.asarray(x)
-        out[f"{name}_fwd"] = np.asarray(ntt.fwd(xj))
-        out[f"{name}_inv"] = np.asarray(ntt.inv(xj))
+        out[f"{name}_fwd"] = np.asarray(jax.jit(ntt.fwd)(xj))
+        out[f"{name}_inv"] = np.asarray(jax.jit(ntt.inv)(xj))
 
     # ---- 4. one paired CMUX step per level (synthetic seeded RGSW rows)
     for name, f, ntt, g in (
         ("cmux1", f1, ntt1, ctx.gadget_br1),
         ("cmux2", f2, ntt2, ctx.gadget_br2),
     ):
-        br = make_blind_rotate(f, ntt, g, paired=True)
+        br = jax.jit(make_blind_rotate(f, ntt, g, paired=True))
         n = ntt.n
         acc = rng.integers(0, f.q, size=(n, 2, 4), dtype=np.int64)
         amounts = rng.integers(0, 2 * n, size=(2, 4), dtype=np.int64)
@@ -100,7 +109,7 @@ def compute_vectors():
 
     # ---- 5. LWE key switch (synthetic int8 limb planes)
     ksp = params.first_level_ks
-    ks = make_lwe_keyswitch(f1, ksp.digits, ksp.out_dimension)
+    ks = jax.jit(make_lwe_keyswitch(f1, ksp.digits, ksp.out_dimension))
     limbs = -(-f1.bits // 7)
     ksk = rng.integers(
         0, 128,
@@ -114,7 +123,7 @@ def compute_vectors():
     out["ks_b"] = np.asarray(ks_b)
 
     # ---- 6. homomorphic trace (synthetic seeded trace key)
-    trace = make_trace(f2, ntt2, ctx.gadget_trace, ctx.trace_autos)
+    trace = jax.jit(make_trace(f2, ntt2, ctx.gadget_trace, ctx.trace_autos))
     rounds = len(ctx.trace_autos)
     tk = rng.integers(
         0, f2.q, size=(rounds, params.n2, ctx.gadget_trace.d, 2),
@@ -143,7 +152,7 @@ def compute_vectors():
             rp, pert, np.random.default_rng(SEED + 3)
         )
     )
-    from tfhe_omr_tpu.core.payload import random_payloads
+    from tfhe_omr.core.payload import random_payloads
 
     payloads = random_payloads(
         np.random.default_rng(SEED + 4), 4, rp.payload_length
@@ -178,7 +187,7 @@ if __name__ == "__main__":
     import sys
 
     # vectors are defined on the CPU backend (the suite's conftest forces
-    # it too; the fused TPU kernels are bit-identical by test_fused_cmux)
+    # it too); chip_smoke.py checks that the GPU reproduces them exactly
     import jax
 
     jax.config.update("jax_platforms", "cpu")

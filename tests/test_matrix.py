@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from tfhe_omr_tpu.core.errors import InvertibleMatrixError
-from tfhe_omr_tpu.core.matrix import solve_matrix_numpy
+from tfhe_omr.core.errors import InvertibleMatrixError
+from tfhe_omr.core.matrix import solve_matrix_numpy
 
 
 def random_system(rng, rows, cols, plen, p):
@@ -31,7 +31,7 @@ def test_solve_numpy(p, rng):
 
 
 def test_solve_native_matches(rng):
-    from tfhe_omr_tpu.native import solve_matrix_native
+    from tfhe_omr.native import solve_matrix_native
 
     p = 257
     m, rhs, x = random_system(rng, 55, 50, 612, p)
@@ -50,7 +50,7 @@ def test_singular_raises(rng):
 
 
 def test_scan_buckets_native(rng):
-    from tfhe_omr_tpu.native import scan_buckets_native
+    from tfhe_omr.native import scan_buckets_native
 
     p, spb, n_buckets, n_seg = 257, 3, 10, 4
     sps = spb * n_buckets

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tfhe_omr_tpu.ops.modmath import PrimeField
+from tfhe_omr.ops.modmath import PrimeField
 
 Q1 = 134215681  # reference FirstLevelField (2**27 - 2047)
 Q2 = 1125899906826241  # reference SecondLevelField (2**50 - 16383)

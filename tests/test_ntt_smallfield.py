@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tfhe_omr_tpu.ops.modmath import PrimeField
-from tfhe_omr_tpu.ops.ntt import NegacyclicNtt
-from tfhe_omr_tpu.ops.ntt_smallfield import SmallFieldNtt
+from tfhe_omr.ops.modmath import PrimeField
+from tfhe_omr.ops.ntt import NegacyclicNtt
+from tfhe_omr.ops.ntt_smallfield import SmallFieldNtt
 
 Q1 = 134215681
 

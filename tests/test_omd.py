@@ -9,9 +9,9 @@ they decode to [1, 0, ..., 0] and all-zeros respectively (``omd.rs:48-58``).
 import numpy as np
 import pytest
 
-from tfhe_omr_tpu.core.keygen import SecretKeyPack
-from tfhe_omr_tpu.core.params import OmrParameters
-from tfhe_omr_tpu.core.sender import ClueBatch
+from tfhe_omr.core.keygen import SecretKeyPack
+from tfhe_omr.core.params import OmrParameters
+from tfhe_omr.core.sender import ClueBatch
 
 
 def run_omd(params, seed=3):

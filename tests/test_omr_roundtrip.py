@@ -10,10 +10,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tfhe_omr_tpu.core.keygen import SecretKeyPack
-from tfhe_omr_tpu.core.params import OmrParameters, RetrievalParams
-from tfhe_omr_tpu.core.payload import random_payloads
-from tfhe_omr_tpu.core.sender import ClueBatch
+from tfhe_omr.core.keygen import SecretKeyPack
+from tfhe_omr.core.params import OmrParameters, RetrievalParams
+from tfhe_omr.core.payload import random_payloads
+from tfhe_omr.core.sender import ClueBatch
 
 
 def run_omr(params, all_count, pertinent_count, seed=11):
@@ -150,7 +150,7 @@ def test_device_encoders_match_host_plaintext_path():
     encode_pertinent_payloads) must produce EXACTLY the ciphertexts of the
     host-plaintext path (build_index_plaintexts + _encode_chunk_jit) —
     same rng stream, exact modular arithmetic on both sides."""
-    from tfhe_omr_tpu.core.detector import sample_weights
+    from tfhe_omr.core.detector import sample_weights
 
     params = OmrParameters.tiny()
     skp = SecretKeyPack(params, rng=21)
@@ -172,7 +172,7 @@ def test_device_encoders_match_host_plaintext_path():
         c = min(16, count - s)
         plain = detector.build_index_plaintexts(rp, c, rng_b, start_index=s)
         host = detector._encode_chunk_jit(
-            pert[s : s + c], jnp.asarray(plain), host, detector.tables
+            pert[s : s + c], jnp.asarray(plain), host
         )
     np.testing.assert_array_equal(np.asarray(dev), np.asarray(host))
 
@@ -192,6 +192,6 @@ def test_device_encoders_match_host_plaintext_path():
                 rp, payloads[s : s + c], w_all[k][:, s : s + c]
             )
             acc = detector._encode_chunk_jit(
-                pert[s : s + c], jnp.asarray(plain), acc, detector.tables
+                pert[s : s + c], jnp.asarray(plain), acc
             )
         np.testing.assert_array_equal(np.asarray(dev_p[k]), np.asarray(acc))

@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tfhe_omr_tpu.core.keygen import SecretKeyPack
-from tfhe_omr_tpu.core.params import OmrParameters
-from tfhe_omr_tpu.core.sender import ClueBatch
-from tfhe_omr_tpu.parallel import ShardedDetector, make_data_mesh
+from tfhe_omr.core.keygen import SecretKeyPack
+from tfhe_omr.core.params import OmrParameters
+from tfhe_omr.core.sender import ClueBatch
+from tfhe_omr.parallel import ShardedDetector, make_data_mesh
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +55,7 @@ def test_sharded_detect_pads_ragged_batches(setup):
 def test_sharded_full_digest_matches_single(setup):
     """encode_pertinent_indices / encode_pertinent_payloads through the
     psum path == the single-device encoders (same rng streams)."""
-    from tfhe_omr_tpu.core.payload import random_payloads
+    from tfhe_omr.core.payload import random_payloads
 
     params, skp, detector, clues = setup
     sharded = ShardedDetector(detector, make_data_mesh())
@@ -85,7 +85,7 @@ def test_sharded_default_params_matches_single():
     ``detector.rs:333-336,445-449``. The digest layout is the production
     D=65536 one (130 buckets x 25 segments, 5 index cts, 28 payload cts)
     even though only 16 messages are detected."""
-    from tfhe_omr_tpu.core.payload import random_payloads
+    from tfhe_omr.core.payload import random_payloads
 
     params = OmrParameters.default()
     skp = SecretKeyPack(params, rng=51)
@@ -135,7 +135,7 @@ def test_sharded_encode_matches_single(setup):
     single = np.asarray(
         detector._encode_chunk_jit(
             pv, jnp.asarray(plain),
-            jnp.zeros((2, params.n2), dtype=jnp.int64), detector.tables,
+            jnp.zeros((2, params.n2), dtype=jnp.int64),
         )
     )
     multi = np.asarray(sharded.encode_chunk(pv, plain))

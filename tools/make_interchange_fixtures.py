@@ -33,11 +33,11 @@ def ints(a):
 
 
 def main():
-    from tfhe_omr_tpu.core.context import OmrContext
-    from tfhe_omr_tpu.core.lut import first_level_lut, second_level_lut
-    from tfhe_omr_tpu.core.params import OmrParameters
-    from tfhe_omr_tpu.ops.bootstrap import lwe_modulus_switch
-    from tfhe_omr_tpu.ops.decompose import SignedGadget
+    from tfhe_omr.core.context import OmrContext
+    from tfhe_omr.core.lut import first_level_lut, second_level_lut
+    from tfhe_omr.core.params import OmrParameters
+    from tfhe_omr.ops.bootstrap import lwe_modulus_switch
+    from tfhe_omr.ops.decompose import SignedGadget
 
     import jax.numpy as jnp
 

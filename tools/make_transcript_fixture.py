@@ -53,9 +53,9 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from tfhe_omr_tpu.core.keygen import SecretKeyPack
-    from tfhe_omr_tpu.core.params import OmrParameters
-    from tfhe_omr_tpu.ops.bootstrap import (
+    from tfhe_omr.core.keygen import SecretKeyPack
+    from tfhe_omr.core.params import OmrParameters
+    from tfhe_omr.ops.bootstrap import (
         extract_constant_lwe,
         init_accumulator,
         lwe_modulus_switch,
@@ -110,14 +110,14 @@ def main():
     # cross-check: identical to the shipped stage-1 program
     s1a, s1b = detector._stage1_jit(
         jnp.asarray(clue.a), jnp.asarray(clue.b7), key.bsk1, key.bsk1_sh,
-        key.ksk_limbs, key.bsk1_bal, detector.tables,
+        key.ksk_limbs, detector.tables,
     )
     np.testing.assert_array_equal(np.asarray(ms_a), np.asarray(s1a))
     np.testing.assert_array_equal(np.asarray(ms_b), np.asarray(s1b))
 
     # -- L2 blind rotation (detector.rs:599-624)
     acc2 = detector._stage2_jit(
-        ms_a, ms_b, key.bsk2, key.bsk2_sh, key.bsk2_bal, detector.tables
+        ms_a, ms_b, key.bsk2, key.bsk2_sh, detector.tables
     )  # (N2, 2, 1)
 
     # -- N2^-1 + trace (detector.rs:626-639), coefficient domain
@@ -128,10 +128,7 @@ def main():
     trace_fn = make_trace(f2, ctx.ntt2, ctx.gadget_trace, ctx.trace_autos)
     tr = trace_fn(acc2s, key.trace_k, key.trace_k_sh)
 
-    out = detector._stage3_jit(
-        acc2, key.trace_k, key.trace_k_sh, key.trace_auto, key.trace_bal,
-        detector.tables,
-    )  # (1, 2, N2) NTT domain
+    out = detector._stage3_jit(acc2, key.trace_k, key.trace_k_sh)  # (1, 2, N2) NTT domain
     np.testing.assert_array_equal(
         np.asarray(ctx.ntt2.fwd(tr).transpose(2, 1, 0)), np.asarray(out)
     )
@@ -161,7 +158,7 @@ def main():
         expect_plain[0, base + rp.index_slots_per_bucket] = 1  # flag
     recheck = detector._encode_chunk_jit(
         full, jnp.asarray(expect_plain),
-        jnp.zeros((2, p.n2), dtype=jnp.int64), detector.tables,
+        jnp.zeros((2, p.n2), dtype=jnp.int64),
     )
     np.testing.assert_array_equal(np.asarray(recheck), np.asarray(idx_ct))
 
